@@ -10,23 +10,23 @@ ROOT="$(cd "$(dirname "$0")/.." && pwd)"
 SCRATCH="$(mktemp -d /tmp/rb3t_asan.XXXXXX)"
 trap 'rm -rf "$SCRATCH"' EXIT
 
-cp -r "$ROOT/ropebwt3_tpu" "$SCRATCH/ropebwt3_tpu"
+cp -r "$ROOT/ropebwt3_jax" "$SCRATCH/ropebwt3_jax"
 cp -r "$ROOT/tests" "$SCRATCH/tests"
-rm -f "$SCRATCH"/ropebwt3_tpu/native/_*.so
+rm -f "$SCRATCH"/ropebwt3_jax/native/_*.so
 
 for src in rld_codec bwasw_core sais; do
   g++ -O1 -g -fsanitize=address -fno-omit-frame-pointer -march=native \
       -std=c++17 -shared -fPIC -pthread \
-      -o "$SCRATCH/ropebwt3_tpu/native/_${src}.so" \
-      "$SCRATCH/ropebwt3_tpu/native/${src}.cpp"
+      -o "$SCRATCH/ropebwt3_jax/native/_${src}.so" \
+      "$SCRATCH/ropebwt3_jax/native/${src}.cpp"
 done
 
 LIBASAN="$(g++ -print-file-name=libasan.so)"
 cd "$SCRATCH"
-# RB3TPU_TEST_REEXEC=1 + the full scrubbed env up front: tests/conftest.py
+# RB3JAX_TEST_REEXEC=1 + the full scrubbed env up front: tests/conftest.py
 # otherwise re-execs pytest with PYTHONPATH="" and the scratch (asan) tree
 # would silently lose to the installed one.
-RB3TPU_TEST_REEXEC=1 \
+RB3JAX_TEST_REEXEC=1 \
 LD_PRELOAD="$LIBASAN" \
 ASAN_OPTIONS="detect_leaks=0:abort_on_error=1" \
 PYTHONPATH="$SCRATCH" JAX_PLATFORMS=cpu \

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Randomized differential testing: run random command/flag combinations on
-random corpora under both rb3tpu and the reference binary and diff stdout.
+random corpora under both rb3jax and the reference binary and diff stdout.
 
 Usage: python scripts/fuzz_diff.py [n_iters] [seed0]
 
@@ -26,7 +26,7 @@ REF_BIN = "/tmp/rb3_ref_bin/ropebwt3"
 ENV = dict(os.environ)
 ENV["PYTHONPATH"] = ""
 ENV["JAX_PLATFORMS"] = "cpu"
-ENV["RB3TPU_CACHE"] = "0"
+ENV["RB3JAX_CACHE"] = "0"
 # 4 virtual CPU devices so --mesh scenarios (up to 2x2) can run
 ENV["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=4").strip()
 
@@ -45,7 +45,7 @@ def run_ref(args, input=None):
 def run_ours(args, input=None):
     try:
         r = subprocess.run(
-            [sys.executable, "-m", "ropebwt3_tpu"] + args,
+            [sys.executable, "-m", "ropebwt3_jax"] + args,
             input=input, capture_output=True, env=ENV, cwd=ROOT, timeout=TIMEOUT,
         )
     except subprocess.TimeoutExpired:
@@ -264,10 +264,10 @@ def server_scenario(rng: random.Random, fmd: str, reads: str) -> list[str]:
     import time
 
     h = hashlib.sha1(os.path.realpath(fmd).encode()).hexdigest()[:12]
-    sock = os.path.join(tempfile.gettempdir(), f"rb3tpu-serve-{h}.sock")
+    sock = os.path.join(tempfile.gettempdir(), f"rb3jax-serve-{h}.sock")
     fails = []
     srv = subprocess.Popen(
-        [sys.executable, "-m", "ropebwt3_tpu", "serve", fmd],
+        [sys.executable, "-m", "ropebwt3_jax", "serve", fmd],
         env=ENV, cwd=ROOT, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
     )
     try:
@@ -336,7 +336,7 @@ def one_iter(seed: int) -> list[str]:
             if args[0] == "build" and "-L" in args[1]:
                 continue  # line-mode build on FASTA input is not meaningful
             args = _maybe_junk(rng, args)
-            # rb3tpu-only extension flags: stripped from the reference argv
+            # rb3jax-only extension flags: stripped from the reference argv
             # (its strict ketopt would abort on them by design)
             ref_args = [a for a in args if not a.startswith(("--engine", "--mesh"))]
             rc_r, out_r, err_r = run_ref(ref_args)

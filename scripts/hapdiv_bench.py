@@ -13,7 +13,7 @@ os.environ.setdefault("NUMPY_MADVISE_HUGEPAGE", "0")
 import numpy as np
 
 import bench as B
-from ropebwt3_tpu.align.bwasw import SwOpt, RB3_SWF_E2E, RB3_SWF_HAPDIV, rb3_hapdiv_multi
+from ropebwt3_jax.align.bwasw import SwOpt, RB3_SWF_E2E, RB3_SWF_HAPDIV, rb3_hapdiv_multi
 
 N = int(sys.argv[1]) if len(sys.argv) > 1 else 20000
 LANES = int(sys.argv[2]) if len(sys.argv) > 2 else 4096
@@ -37,7 +37,7 @@ if ENGINE in ("native", "both", "oracle"):
     print(f"[native -t4] {N} windows: {dt:.2f}s = {N/dt:,.0f} win/s", flush=True)
 
 if ENGINE in ("jax", "both", "oracle"):
-    from ropebwt3_tpu.align.hapdiv_jax import HapdivDeviceEngine
+    from ropebwt3_jax.align.hapdiv_jax import HapdivDeviceEngine
 
     eng = HapdivDeviceEngine(f, opt, lanes=LANES)
     t0 = time.time()

@@ -3,7 +3,7 @@
 
 Builds the nt6 double-strand concatenation of the bench corpus (same input
 the CLI `build` feeds rb3t_gsa_bwt) and times the native call.  Run with
-JAX_PLATFORMS=cpu PYTHONPATH= to avoid the TPU attach.
+JAX_PLATFORMS=cpu (host-only work).
 
 Usage: python scripts/sais_bench.py [n_mbp] [passes]
 """
@@ -44,7 +44,7 @@ def corpus(n_symbols: int) -> np.ndarray:
 def main():
     seq = corpus(int(N_MBP * 1e6))
     print(f"[sais_bench] n={len(seq):,} symbols, {np.count_nonzero(seq == 0)} seqs", file=sys.stderr)
-    from ropebwt3_tpu.native import get_sais_lib
+    from ropebwt3_jax.native import get_sais_lib
 
     lib = get_sais_lib()
     assert lib is not None

@@ -1,20 +1,19 @@
 #!/usr/bin/env python
 """Scale curve for the SMEM kernel: 64M / 640M / 1.3G(mtb152-like) / 2.4G.
 
-BASELINE config 3 demands mtb152-scale (~1.3 G symbols) evidence; VERDICT
-round-2 item 2 asks for a three-point curve plus a >2^31 (int64) exercise.
-Each scale gets: corpus + reads sampled from it, an FMD built by OUR CLI,
-a dense-table cache, a reference `mem -t4` baseline, and a TPU kernel run
-that records wall AND loop iterations (so per-iteration cost is separable
-from workload iteration-count differences — the round-1 "640M falloff"
-attribution needs this).
+BASELINE config 3 is mtb152-scale (~1.3 G symbols); the curve adds 640M and
+a >2^31 (int64) point.  Each scale gets: corpus + reads sampled from it, an
+FMD built by OUR CLI, a dense-table cache, a reference `mem -t4` baseline,
+and a device kernel run that records wall AND loop iterations (so
+per-iteration cost is separable from workload iteration-count
+differences).
 
 Usage (scales: s640 | mtb13 | big2g | big8g):
   python scripts/scale_bench.py gen     <scale>   # corpus+reads
   python scripts/scale_bench.py build   <scale>   # our FMD + dense cache
   python scripts/scale_bench.py sidecar <scale>   # .dense/.pl/.rb.npz prebuild
   python scripts/scale_bench.py ref     <scale>   # reference timing (run solo)
-  python scripts/scale_bench.py tpu     <scale>   # TPU kernel timing
+  python scripts/scale_bench.py device  <scale>   # device kernel timing
   python scripts/scale_bench.py golden  <scale>   # byte-compare mem (big2g/big8g
                                                   # are the int64 golden gates)
 
@@ -48,7 +47,7 @@ SCALES = {
     "mtb13": dict(n_genomes=152, glen=4_400_000, seed=20260820, batch="120m"),
     # >2^31: 24 x 50 Mbp -> 2,400,000,048 symbols (gen_big2g.py recipe)
     "big2g": dict(n_genomes=24, glen=50_000_000, seed=20260818, batch="120m"),
-    # beyond-HBM-dense demo (VERDICT r3 item 2): 400 x 10 Mbp at 0.3%
+    # beyond-dense capacity corpus: 400 x 10 Mbp at 0.3%
     # divergence -> 8,000,800,000 symbols; the low divergence gives the
     # run-aware compressed device rows pangenome-like run lengths
     "big8g": dict(n_genomes=400, glen=10_000_000, seed=20260821, divergence=0.003, batch="120m", no_npz=True),
@@ -105,7 +104,6 @@ def gen(scale):
 
 def scrub_env():
     e = dict(os.environ)
-    e["PYTHONPATH"] = ""
     e["JAX_PLATFORMS"] = "cpu"
     return e
 
@@ -124,7 +122,7 @@ def build(scale):
         # merge work is roughly batch-size-insensitive — the per-scale batch
         # keeps SA-IS under its knee
         subprocess.run(
-            [sys.executable, "-m", "ropebwt3_tpu", "build", f"-m{batch}", "-do", fmd, os.path.join(out, "genomes.fa")],
+            [sys.executable, "-m", "ropebwt3_jax", "build", f"-m{batch}", "-do", fmd, os.path.join(out, "genomes.fa")],
             check=True, env=scrub_env(), cwd=ROOT,
         )
         log(f"{scale}: build {time.time()-t0:.1f}s")
@@ -134,8 +132,8 @@ def build(scale):
     if not os.path.exists(npz):
         log(f"{scale}: dense decode ...")
         t0 = time.time()
-        from ropebwt3_tpu.formats import fmd as fmdc
-        from ropebwt3_tpu.index.dense import DenseFMIndex
+        from ropebwt3_jax.formats import fmd as fmdc
+        from ropebwt3_jax.index.dense import DenseFMIndex
 
         _, syms, lens = fmdc.read_fmd(fmd)
         f = DenseFMIndex.from_runs(syms, lens)
@@ -145,12 +143,12 @@ def build(scale):
 
 def sidecar(scale):
     """Prebuild every query-time sidecar for a scale so bench-time loads are
-    mmap-warm (VERDICT r4 item 2: the first bench after regen used to pay
-    GB-scale table construction per scale): `.dense` (v2 hugepage layout),
+    mmap-warm (otherwise the first bench pays GB-scale table construction
+    per scale): `.dense` (v2 hugepage layout),
     `.dense.pl` (pline rank records), `.dense.rb.npz` (compressed rb rows)."""
-    from ropebwt3_tpu.cli import load_index
-    from ropebwt3_tpu.ops import runblock
-    from ropebwt3_tpu.ops.smem_native import pline_table
+    from ropebwt3_jax.cli import load_index
+    from ropebwt3_jax.ops import runblock
+    from ropebwt3_jax.ops.smem_native import pline_table
 
     fmd = os.path.join(d(scale), "idx.fmd")
     t0 = time.time()
@@ -165,7 +163,7 @@ def sidecar(scale):
 
 
 def load_dense(scale):
-    from ropebwt3_tpu.index.dense import DenseFMIndex
+    from ropebwt3_jax.index.dense import DenseFMIndex
 
     z = np.load(os.path.join(d(scale), "dense.npz"))
     return DenseFMIndex(bwt=z["bwt"], n=int(z["n"]), acc=z["acc"], occ_block=z["occ_block"], occ_super=z["occ_super"])
@@ -201,8 +199,8 @@ def ref(scale):
     return r
 
 
-def tpu(scale, passes=3):
-    """Packed TPU kernel, identical shapes to bench.py; reports wall, iters."""
+def device(scale, passes=3):
+    """Packed device kernel, identical shapes to bench.py; reports wall, iters."""
     out = d(scale)
     f = load_dense(scale)
     log(f"{scale}: n={f.n:,} (idx dtype {'int64' if f.n >= (1<<31)-(1<<20) else 'int32'})")
@@ -211,8 +209,8 @@ def tpu(scale, passes=3):
     import jax
     import jax.numpy as jnp
 
-    from ropebwt3_tpu.ops.rank import DeviceIndex
-    from ropebwt3_tpu.ops.smem import smem_tg_batch
+    from ropebwt3_jax.ops.rank import DeviceIndex
+    from ropebwt3_jax.ops.smem import smem_tg_batch
 
     idx = DeviceIndex.from_dense(f)
     del f
@@ -266,7 +264,7 @@ def tpu(scale, passes=3):
         "n": int(np.asarray(idx.acc[-1])), "wall_s": best, "reads_per_s": N_READS / best,
         "iters": iters_tot, "us_per_iter": best / iters_tot * 1e6, "mems": mems_tot,
     }
-    json.dump(r, open(os.path.join(out, "tpu_timing.json"), "w"))
+    json.dump(r, open(os.path.join(out, "device_timing.json"), "w"))
     log(f"{scale}: ours {best:.2f}s = {r['reads_per_s']:,.0f} reads/s, {r['us_per_iter']:.1f} us/iter, {mems_tot} MEMs")
     return r
 
@@ -284,7 +282,7 @@ def golden(scale):
     t_ref = time.time() - t0
     t0 = time.time()
     r2 = subprocess.run(
-        [sys.executable, "-m", "ropebwt3_tpu", "mem", f"-l{MIN_LEN}", fmd, reads_fa],
+        [sys.executable, "-m", "ropebwt3_jax", "mem", f"-l{MIN_LEN}", fmd, reads_fa],
         check=True, capture_output=True, env=scrub_env(), cwd=ROOT,
     )
     t_ours = time.time() - t0
@@ -298,4 +296,4 @@ def golden(scale):
 
 if __name__ == "__main__":
     stage, scale = sys.argv[1], sys.argv[2] if len(sys.argv) > 2 else "s640"
-    {"gen": gen, "build": build, "sidecar": sidecar, "ref": ref, "tpu": tpu, "golden": golden}[stage](scale)
+    {"gen": gen, "build": build, "sidecar": sidecar, "ref": ref, "device": device, "golden": golden}[stage](scale)

@@ -6,7 +6,7 @@ transliteration of /root/reference/rb3tools.js (line anchors cited per
 function) — including k8 print semantics (tab-joined arguments), JS stable
 sorts, and JS regex behavior.  It exists ONLY as a test oracle: the
 randomized differential in test_tools_differential.py byte-compares it
-against the production port (ropebwt3_tpu/tools.py), which was written
+against the production port (ropebwt3_jax/tools.py), which was written
 independently (round 2) in idiomatic Python.  Agreement over randomized
 inputs replaces the round-3 hand-traced fixtures with a machine check.
 """

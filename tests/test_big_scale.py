@@ -1,6 +1,6 @@
 """>2^31-symbol (int64-index) golden test — gated, uses cached artifacts.
 
-Run:  RB3TPU_SLOW_TESTS=1 python -m pytest tests/test_big_scale.py -x -q
+Run:  RB3JAX_SLOW_TESTS=1 python -m pytest tests/test_big_scale.py -x -q
 
 Needs the 2.4 Gsym corpus + index under .bench/big2g (built once by
 `python scripts/scale_bench.py gen big2g` + a multi-batch CLI build, ~30 min;
@@ -21,10 +21,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BIG = os.path.join(ROOT, ".bench", "big2g")
 
 pytestmark = pytest.mark.skipif(
-    os.environ.get("RB3TPU_SLOW_TESTS") != "1"
+    os.environ.get("RB3JAX_SLOW_TESTS") != "1"
     or not os.path.exists(os.path.join(BIG, "idx.fmd"))
     or not os.path.exists(REF_BIN),
-    reason="gated: RB3TPU_SLOW_TESTS=1 + cached .bench/big2g artifacts",
+    reason="gated: RB3JAX_SLOW_TESTS=1 + cached .bench/big2g artifacts",
 )
 
 
@@ -36,7 +36,7 @@ def test_mem_golden_int64_index():
     env["PYTHONPATH"] = ""
     env["JAX_PLATFORMS"] = "cpu"
     o = subprocess.run(
-        [sys.executable, "-m", "ropebwt3_tpu", "mem", "-l31", fmd, reads],
+        [sys.executable, "-m", "ropebwt3_jax", "mem", "-l31", fmd, reads],
         check=True, capture_output=True, env=env, cwd=ROOT,
     )
     assert r.stdout, "reference produced no output"
@@ -47,10 +47,10 @@ BIG8 = os.path.join(ROOT, ".bench", "big8g")
 
 
 @pytest.mark.skipif(
-    os.environ.get("RB3TPU_SLOW_TESTS") != "1"
+    os.environ.get("RB3JAX_SLOW_TESTS") != "1"
     or not os.path.exists(os.path.join(BIG8, "idx.fmd"))
     or not os.path.exists(REF_BIN),
-    reason="gated: RB3TPU_SLOW_TESTS=1 + cached .bench/big8g artifacts",
+    reason="gated: RB3JAX_SLOW_TESTS=1 + cached .bench/big8g artifacts",
 )
 def test_mem_golden_8gsym_index():
     """8.0 Gsym (beyond-dense-HBM capacity demo corpus, round 4): our mem
@@ -62,7 +62,7 @@ def test_mem_golden_8gsym_index():
     env["PYTHONPATH"] = ""
     env["JAX_PLATFORMS"] = "cpu"
     o = subprocess.run(
-        [sys.executable, "-m", "ropebwt3_tpu", "mem", "-l31", fmd, reads],
+        [sys.executable, "-m", "ropebwt3_jax", "mem", "-l31", fmd, reads],
         check=True, capture_output=True, env=env, cwd=ROOT,
     )
     assert r.stdout, "reference produced no output"

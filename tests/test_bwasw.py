@@ -110,7 +110,7 @@ def test_sw_debug_streams(ref_bin, ref_index, sw_reads):
     env = dict(os.environ)
     env["PYTHONPATH"] = ""
     env["JAX_PLATFORMS"] = "cpu"
-    ours = subprocess.run([sys.executable, "-m", "ropebwt3_tpu"] + cmd, capture_output=True, env=env)
+    ours = subprocess.run([sys.executable, "-m", "ropebwt3_jax"] + cmd, capture_output=True, env=env)
     assert ours.returncode == 0, ours.stderr.decode()
 
     def dbg_lines(b):

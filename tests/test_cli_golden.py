@@ -48,7 +48,7 @@ def test_build_batched_merge(ref_bin, corpus):
 
 
 def test_merge_cmd_logical(ref_bin, corpus, tmp_path):
-    from ropebwt3_tpu.cli import load_runs
+    from ropebwt3_jax.cli import load_runs
     import numpy as np
 
     fa = str(corpus / "genomes.fa")
@@ -201,13 +201,13 @@ def test_usage_stdout_and_exit_parity(ref_bin):
             "get", "stat", "suffix", "kount", "fa2line", "fa2kmer"]
     for cmd in cmds:
         r = subprocess.run([ref_bin, cmd], capture_output=True)
-        o = subprocess.run([sys.executable, "-m", "ropebwt3_tpu", cmd], capture_output=True, env=env)
+        o = subprocess.run([sys.executable, "-m", "ropebwt3_jax", cmd], capture_output=True, env=env)
         assert o.returncode == r.returncode, cmd
-        ref_out = r.stdout.replace(b"ropebwt3", b"rb3tpu")
+        ref_out = r.stdout.replace(b"ropebwt3", b"rb3jax")
         assert o.stdout == ref_out, (cmd, o.stdout, ref_out)
     # unknown command: the one nonzero exit in the reference
     r = subprocess.run([ref_bin, "bogus"], capture_output=True)
-    o = subprocess.run([sys.executable, "-m", "ropebwt3_tpu", "bogus"], capture_output=True, env=env)
+    o = subprocess.run([sys.executable, "-m", "ropebwt3_jax", "bogus"], capture_output=True, env=env)
     assert o.returncode == r.returncode == 1
 
 
@@ -220,13 +220,13 @@ def test_mem_pos_min_len1_golden(ref_bin, ref_index, corpus):
 
 def test_fa2line_native_binary_golden(ref_bin, corpus, tmp_path):
     """The standalone fa2line binary (native/fa2line.cpp, exec'd by the
-    bin/rb3tpu launcher to skip interpreter+numpy startup) is byte-identical
+    bin/rb3jax launcher to skip interpreter+numpy startup) is byte-identical
     to the reference on FASTA, gzipped FASTA, FASTQ, stdin, -R, and edge
     records (empty seq, multi-line, lowercase, N runs, CRLF)."""
     import gzip
     import subprocess
 
-    from ropebwt3_tpu.native import ensure_fa2line
+    from ropebwt3_jax.native import ensure_fa2line
 
     binp = ensure_fa2line()
     assert binp and os.path.exists(binp)
@@ -258,7 +258,7 @@ def test_fa2kmer_nonpositive_step_terminates(corpus):
     (fuzz seed 10141: a junk flag spliced as the -w value gave step 0; the
     reference segfaults on the same input, so no golden compare is possible)."""
     r = subprocess.run(
-        [sys.executable, "-m", "ropebwt3_tpu", "fa2kmer", "-k", "151", "-w", "0", str(corpus / "reads.fa")],
+        [sys.executable, "-m", "ropebwt3_jax", "fa2kmer", "-k", "151", "-w", "0", str(corpus / "reads.fa")],
         capture_output=True, timeout=60, env={**os.environ, "PYTHONPATH": "", "JAX_PLATFORMS": "cpu"},
     )
     assert b"step size must be positive" in r.stderr

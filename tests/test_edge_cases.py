@@ -100,7 +100,7 @@ def test_missing_input_files(ref_bin, ref_index, tmp_path):
 
     def both(args):
         r = subprocess.run([ref_bin] + args, capture_output=True)
-        o = subprocess.run([sys.executable, "-m", "ropebwt3_tpu"] + args, capture_output=True, env=env)
+        o = subprocess.run([sys.executable, "-m", "ropebwt3_jax"] + args, capture_output=True, env=env)
         assert o.stdout == r.stdout, args
         ref_err = [l for l in r.stderr.splitlines() if l.startswith(b"ERROR")]
         our_err = [l for l in o.stderr.splitlines() if l.startswith(b"ERROR")]
@@ -120,7 +120,7 @@ def test_batch_nt6_flat_matches_streaming(tmp_path):
     for every strand combination, including empty records."""
     import numpy as np
 
-    from ropebwt3_tpu.seqio import batch_nt6_flat, read_batch_nt6, read_seqs, read_seqs_flat
+    from ropebwt3_jax.seqio import batch_nt6_flat, read_batch_nt6, read_seqs, read_seqs_flat
 
     rng = np.random.default_rng(9)
     alpha = np.frombuffer(b"ACGTN", np.uint8)
@@ -144,8 +144,8 @@ def test_flat_reader_matches_streaming(tmp_path):
 
     import numpy as np
 
-    from ropebwt3_tpu.nt6 import char2nt6
-    from ropebwt3_tpu.seqio import read_seqs, read_seqs_flat
+    from ropebwt3_jax.nt6 import char2nt6
+    from ropebwt3_jax.seqio import read_seqs, read_seqs_flat
 
     cases = [
         b">a\nACGT\n>b x y\nNNN\nacgt\n",
@@ -184,10 +184,10 @@ def test_flat_reader_matches_streaming(tmp_path):
 def test_write_all_chunking(tmp_path):
     """bufio.write_all must reproduce the input bytes exactly for bytes,
     memoryview, and str inputs across chunk boundaries (large writes are
-    chunked to dodge a VM pathology — see ropebwt3_tpu/bufio.py)."""
+    chunked to dodge a VM pathology — see ropebwt3_jax/bufio.py)."""
     import numpy as np
 
-    from ropebwt3_tpu.bufio import write_all
+    from ropebwt3_jax.bufio import write_all
 
     data = np.random.default_rng(0).integers(0, 256, 1 << 20, dtype=np.uint8).tobytes()
     for chunk in (7, 4096, 1 << 19, 1 << 22):
@@ -210,7 +210,7 @@ def test_footer_realtime_anchored_at_process_start():
     import sys
 
     code = (
-        "import time; time.sleep(1.2); import ropebwt3_tpu.log as L;"
+        "import time; time.sleep(1.2); import ropebwt3_jax.log as L;"
         "print(L.realtime())"
     )
     out = subprocess.run(

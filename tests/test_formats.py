@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from ropebwt3_tpu.formats import bre, fmd, fmr
-from ropebwt3_tpu.index.dense import DenseFMIndex
-from ropebwt3_tpu.nt6 import nt6_to_str
+from ropebwt3_jax.formats import bre, fmd, fmr
+from ropebwt3_jax.index.dense import DenseFMIndex
+from ropebwt3_jax.nt6 import nt6_to_str
 
 from .conftest import run_ref
 

@@ -7,9 +7,9 @@ matches the reference.  Runs on the CPU backend like the rest of the suite."""
 import numpy as np
 import pytest
 
-from ropebwt3_tpu.align.bwasw import SwOpt, RB3_SWF_E2E, RB3_SWF_HAPDIV, rb3_hapdiv_multi
-from ropebwt3_tpu.formats import fmd
-from ropebwt3_tpu.index.dense import DenseFMIndex
+from ropebwt3_jax.align.bwasw import SwOpt, RB3_SWF_E2E, RB3_SWF_HAPDIV, rb3_hapdiv_multi
+from ropebwt3_jax.formats import fmd
+from ropebwt3_jax.index.dense import DenseFMIndex
 
 
 @pytest.fixture(scope="module")
@@ -42,8 +42,8 @@ def test_device_nbest_geometry_matches_host(dense_index, corpus, n_best):
     stay bit-exact vs the host engine."""
     import jax.numpy as jnp
 
-    from ropebwt3_tpu.align.hapdiv_jax import hapdiv_device, nb_params
-    from ropebwt3_tpu.ops.rank import DeviceIndex
+    from ropebwt3_jax.align.hapdiv_jax import hapdiv_device, nb_params
+    from ropebwt3_jax.ops.rank import DeviceIndex
 
     assert nb_params(16)[1] == 64 and nb_params(17)[1] == 128 and nb_params(40)[1] == 256
     rng = np.random.default_rng(n_best)
@@ -79,8 +79,8 @@ def test_device_nbest_geometry_matches_host(dense_index, corpus, n_best):
 def test_device_matches_host(dense_index, corpus, err, k):
     import jax.numpy as jnp
 
-    from ropebwt3_tpu.align.hapdiv_jax import hapdiv_device
-    from ropebwt3_tpu.ops.rank import DeviceIndex
+    from ropebwt3_jax.align.hapdiv_jax import hapdiv_device
+    from ropebwt3_jax.ops.rank import DeviceIndex
 
     rng = np.random.default_rng(hash((err, k)) % 2**32)
     tab = np.zeros(256, np.uint8)
@@ -124,7 +124,7 @@ def test_oversized_nbest_falls_back(dense_index, corpus, n_best):
 
     50 is the regression case: 48 < N <= 64 passed the old gate but the
     stack pad shape (W, SCAP-N) went negative (fuzz seed 9000)."""
-    from ropebwt3_tpu.align.hapdiv_jax import HapdivDeviceEngine
+    from ropebwt3_jax.align.hapdiv_jax import HapdivDeviceEngine
 
     k = 31
     rng = np.random.default_rng(50)
@@ -161,7 +161,7 @@ def test_bucket_scan_matches_sequential(n_best):
     first-empty-cyclic-probe insert across table geometries (NB = 8..256),
     including deep collision cascades and wraparound probes."""
     import jax.numpy as jnp
-    from ropebwt3_tpu.align.hapdiv_jax import bucket_scan, nb_params
+    from ropebwt3_jax.align.hapdiv_jax import bucket_scan, nb_params
 
     _, NB, MAXC = nb_params(n_best)
     W, UCAP = 64, MAXC - 1

@@ -4,11 +4,11 @@ reference implementation."""
 import numpy as np
 import pytest
 
-from ropebwt3_tpu.formats import fmd
-from ropebwt3_tpu.index.dense import DenseFMIndex
-from ropebwt3_tpu.nt6 import char2nt6
-from ropebwt3_tpu.ops import smem_ref
-from ropebwt3_tpu.seqio import read_seqs
+from ropebwt3_jax.formats import fmd
+from ropebwt3_jax.index.dense import DenseFMIndex
+from ropebwt3_jax.nt6 import char2nt6
+from ropebwt3_jax.ops import smem_ref
+from ropebwt3_jax.seqio import read_seqs
 
 
 @pytest.fixture(scope="module")
@@ -23,7 +23,7 @@ def reads(corpus):
 
 
 def test_batched_smem_matches_ref(dense_index, reads):
-    from ropebwt3_tpu.ops.smem import BatchedSmemTG
+    from ropebwt3_jax.ops.smem import BatchedSmemTG
 
     eng = BatchedSmemTG(dense_index, min_occ=1, min_len=21)
     got = eng.run(reads)
@@ -32,7 +32,7 @@ def test_batched_smem_matches_ref(dense_index, reads):
 
 
 def test_batched_smem_mixed_lengths(dense_index, reads):
-    from ropebwt3_tpu.ops.smem import BatchedSmemTG
+    from ropebwt3_jax.ops.smem import BatchedSmemTG
 
     mixed = [r[: 40 + 13 * (i % 9)] for i, r in enumerate(reads)]
     eng = BatchedSmemTG(dense_index, min_occ=1, min_len=17)
@@ -45,7 +45,7 @@ def test_batched_smem_long_reads(dense_index):
     """HiFi-length reads: lane scaling + capped MEM buffers + overflow rerun."""
     import numpy as np
 
-    from ropebwt3_tpu.ops.smem import BatchedSmemTG
+    from ropebwt3_jax.ops.smem import BatchedSmemTG
 
     g, _ = dense_index.retrieve(0)
     rng = np.random.default_rng(9)
@@ -66,7 +66,7 @@ def test_batched_smem_long_reads(dense_index):
 def test_jax_rank_matches_numpy(dense_index):
     import jax.numpy as jnp
 
-    from ropebwt3_tpu.ops.rank import DeviceIndex, rank1a
+    from ropebwt3_jax.ops.rank import DeviceIndex, rank1a
 
     idx = DeviceIndex.from_dense(dense_index)
     rng = np.random.default_rng(0)
@@ -79,8 +79,8 @@ def test_sharded_smem(dense_index, reads):
     import jax
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from ropebwt3_tpu.parallel.mesh import ShardedIndex, make_mesh
-    from ropebwt3_tpu.parallel.smem_sharded import smem_sharded_fn
+    from ropebwt3_jax.parallel.mesh import ShardedIndex, make_mesh
+    from ropebwt3_jax.parallel.smem_sharded import smem_sharded_fn
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
@@ -109,7 +109,7 @@ def test_packed_lanes_match_ref(dense_index, reads):
     sub-min_len reads) must match the sequential reference exactly."""
     import numpy as np
 
-    from ropebwt3_tpu.ops.smem import BatchedSmemTG
+    from ropebwt3_jax.ops.smem import BatchedSmemTG
 
     g, _ = dense_index.retrieve(2)
     rng = np.random.default_rng(31)
@@ -139,9 +139,9 @@ def test_seed_table_and_unroll_match_base(dense_index, reads):
     import jax.numpy as jnp
     import numpy as np
 
-    from ropebwt3_tpu.ops.rank import DeviceIndex
-    from ropebwt3_tpu.ops.seed import build_seed_table
-    from ropebwt3_tpu.ops.smem import smem_tg_batch
+    from ropebwt3_jax.ops.rank import DeviceIndex
+    from ropebwt3_jax.ops.seed import build_seed_table
+    from ropebwt3_jax.ops.smem import smem_tg_batch
 
     idx = DeviceIndex.from_dense(dense_index)
     Q, L = 128, 256
@@ -170,9 +170,9 @@ def test_sharded_int64_megablock(dense_index, reads, monkeypatch):
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from ropebwt3_tpu.ops import rank as rank_mod
-    from ropebwt3_tpu.parallel.mesh import ShardedIndex, make_mesh
-    from ropebwt3_tpu.parallel.smem_sharded import smem_sharded_fn
+    from ropebwt3_jax.ops import rank as rank_mod
+    from ropebwt3_jax.parallel.mesh import ShardedIndex, make_mesh
+    from ropebwt3_jax.parallel.smem_sharded import smem_sharded_fn
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
@@ -206,8 +206,8 @@ def test_int64_megablock_layout(dense_index, reads, monkeypatch):
     import jax.numpy as jnp
     import numpy as np
 
-    from ropebwt3_tpu.ops import rank as rank_mod
-    from ropebwt3_tpu.ops.smem import smem_tg_batch
+    from ropebwt3_jax.ops import rank as rank_mod
+    from ropebwt3_jax.ops.smem import smem_tg_batch
 
     monkeypatch.setattr(rank_mod, "MEGA_BLOCK_SHIFT", 6)  # 4096-symbol megablocks
     i64 = rank_mod.DeviceIndex.from_dense(dense_index, idx_dtype=jnp.int64)
@@ -238,8 +238,8 @@ def test_carry_sp_matches_base(dense_index, reads):
     import jax.numpy as jnp
     import numpy as np
 
-    from ropebwt3_tpu.ops.rank import DeviceIndex
-    from ropebwt3_tpu.ops.smem import smem_tg_batch
+    from ropebwt3_jax.ops.rank import DeviceIndex
+    from ropebwt3_jax.ops.smem import smem_tg_batch
 
     idx = DeviceIndex.from_dense(dense_index)
     Q, R, LBUF = 32, 8, 512
@@ -278,8 +278,8 @@ def test_prefix_occ_matches_default(dense_index, reads, monkeypatch):
     import jax.numpy as jnp
     import numpy as np
 
-    from ropebwt3_tpu.ops import rank as rank_mod
-    from ropebwt3_tpu.ops.smem import smem_tg_batch
+    from ropebwt3_jax.ops import rank as rank_mod
+    from ropebwt3_jax.ops.smem import smem_tg_batch
 
     monkeypatch.setattr(rank_mod, "MEGA_BLOCK_SHIFT", 6)
     base32 = rank_mod.DeviceIndex.from_dense(dense_index, prefix=False)
@@ -319,8 +319,8 @@ def test_uniform_segments_match_general(dense_index, reads):
     import jax.numpy as jnp
     import numpy as np
 
-    from ropebwt3_tpu.ops.rank import DeviceIndex
-    from ropebwt3_tpu.ops.smem import smem_tg_batch
+    from ropebwt3_jax.ops.rank import DeviceIndex
+    from ropebwt3_jax.ops.smem import smem_tg_batch
 
     idx = DeviceIndex.from_dense(dense_index)
     Q, R, LBUF, RL = 16, 6, 512, 73
@@ -358,7 +358,7 @@ def test_extend_c_matches_extend_row(dense_index):
     import jax.numpy as jnp
     import numpy as np
 
-    from ropebwt3_tpu.ops.rank import DeviceIndex, extend, extend_c, extend_c_circuit, set_intv
+    from ropebwt3_jax.ops.rank import DeviceIndex, extend, extend_c, extend_c_circuit, set_intv
 
     idx = DeviceIndex.from_dense(dense_index)
     rng = np.random.default_rng(11)
@@ -381,8 +381,8 @@ def test_int64_index_dtype_matches_int32(dense_index, reads):
     import jax.numpy as jnp
     import numpy as np
 
-    from ropebwt3_tpu.ops.rank import DeviceIndex
-    from ropebwt3_tpu.ops.smem import smem_tg_batch
+    from ropebwt3_jax.ops.rank import DeviceIndex
+    from ropebwt3_jax.ops.smem import smem_tg_batch
 
     i32 = DeviceIndex.from_dense(dense_index)
     i64 = DeviceIndex.from_dense(dense_index, idx_dtype=jnp.int64)
@@ -403,40 +403,12 @@ def test_int64_index_dtype_matches_int32(dense_index, reads):
         assert np.array_equal(np.asarray(a[0]).astype(np.int64), np.asarray(b[0]))
 
 
-def test_pallas_fsm_matches_xla(dense_index, reads):
-    """The fused Pallas loop body (interpret mode on CPU) must produce the
-    exact same MEMs as the pure-XLA FSM."""
-    import jax.numpy as jnp
-    import numpy as np
-
-    from ropebwt3_tpu.ops.rank import DeviceIndex
-    from ropebwt3_tpu.ops.smem import smem_tg_batch
-    from ropebwt3_tpu.ops.smem_pallas import smem_tg_pallas
-
-    idx = DeviceIndex.from_dense(dense_index)
-    Q, L = 128, 256
-    qarr = np.zeros((Q, L), np.uint8)
-    qlen = np.zeros(Q, np.int32)
-    for t in range(Q):
-        r = reads[t % len(reads)]
-        qarr[t, : len(r)] = r
-        qlen[t] = len(r)
-    args = dict(min_occ=1, min_len=21, max_mems=16, max_iters=4 * L + 64)
-    m1, n1, _ = smem_tg_batch(idx, jnp.asarray(qarr), jnp.asarray(qlen), **args)
-    m2, n2, _ = smem_tg_pallas(idx, jnp.asarray(qarr), jnp.asarray(qlen), interpret=True, **args)
-    m1, n1, m2, n2 = map(np.asarray, (m1, n1, m2, n2))
-    assert np.array_equal(n1, n2)
-    for t in range(Q):
-        k = min(n1[t], 16)
-        assert np.array_equal(m1[t, :k], m2[t, :k])
-
-
 def test_merge_rank_device_matches_host():
     import numpy as np
 
-    from ropebwt3_tpu.construct.merge import merge_rank_device, merge_rank_plain
-    from ropebwt3_tpu.construct.sa import gsa_bwt
-    from ropebwt3_tpu.index.dense import DenseFMIndex
+    from ropebwt3_jax.construct.merge import merge_rank_device, merge_rank_plain
+    from ropebwt3_jax.construct.sa import gsa_bwt
+    from ropebwt3_jax.index.dense import DenseFMIndex
 
     rng = np.random.default_rng(4)
 
@@ -458,8 +430,8 @@ def test_merge_rank_device_matches_host():
 
 
 def test_jax_sa_builder(corpus):
-    from ropebwt3_tpu.construct.sa import _initial_ranks, suffix_array_doubling
-    from ropebwt3_tpu.construct.sa_jax import gsa_bwt_jax
+    from ropebwt3_jax.construct.sa import _initial_ranks, suffix_array_doubling
+    from ropebwt3_jax.construct.sa_jax import gsa_bwt_jax
 
     rng = np.random.default_rng(3)
     parts = []
@@ -478,7 +450,8 @@ def test_graft_entry():
     import sys
     import os
 
-    r = subprocess.run([sys.executable, "/root/repo/__graft_entry__.py", "8"], capture_output=True, env=dict(os.environ))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, os.path.join(root, "__graft_entry__.py"), "8"], capture_output=True, env=dict(os.environ))
     assert r.returncode == 0, r.stderr.decode()
     assert b"dryrun_multichip OK" in r.stdout
 
@@ -491,8 +464,8 @@ def test_native_sais_matches_doubling():
     the recursion."""
     import pytest
 
-    from ropebwt3_tpu.construct.sa import _initial_ranks, suffix_array_doubling
-    from ropebwt3_tpu.native import get_sais_lib
+    from ropebwt3_jax.construct.sa import _initial_ranks, suffix_array_doubling
+    from ropebwt3_jax.native import get_sais_lib
 
     lib = get_sais_lib()
     if lib is None:
@@ -534,10 +507,10 @@ def test_merge_rank_native_matches_host():
     per-thread state-machine groups."""
     import pytest
 
-    from ropebwt3_tpu.construct.merge import merge_rank_native, merge_rank_plain
-    from ropebwt3_tpu.construct.sa import gsa_bwt
-    from ropebwt3_tpu.index.dense import DenseFMIndex
-    from ropebwt3_tpu.native import get_sw_lib
+    from ropebwt3_jax.construct.merge import merge_rank_native, merge_rank_plain
+    from ropebwt3_jax.construct.sa import gsa_bwt
+    from ropebwt3_jax.index.dense import DenseFMIndex
+    from ropebwt3_jax.native import get_sw_lib
 
     if get_sw_lib() is None:
         pytest.skip("native toolchain unavailable")
@@ -564,10 +537,10 @@ def test_ssa_gen_native_matches_host():
     counts around the per-thread group size."""
     import pytest
 
-    from ropebwt3_tpu.construct.sa import gsa_bwt
-    from ropebwt3_tpu.index.dense import DenseFMIndex
-    from ropebwt3_tpu.native import get_sw_lib
-    from ropebwt3_tpu.ssa_ops import ssa_gen, ssa_gen_native
+    from ropebwt3_jax.construct.sa import gsa_bwt
+    from ropebwt3_jax.index.dense import DenseFMIndex
+    from ropebwt3_jax.native import get_sw_lib
+    from ropebwt3_jax.ssa_ops import ssa_gen, ssa_gen_native
 
     if get_sw_lib() is None:
         pytest.skip("native toolchain unavailable")
@@ -594,8 +567,8 @@ def test_native_lf2_and_merge_apply():
 
     import pytest
 
-    from ropebwt3_tpu.construct.merge import lf2_table
-    from ropebwt3_tpu.native import get_sw_lib
+    from ropebwt3_jax.construct.merge import lf2_table
+    from ropebwt3_jax.native import get_sw_lib
 
     lib = get_sw_lib()
     if lib is None:
@@ -638,16 +611,16 @@ def test_sharded_merge_rank(dense_index):
     over dp, rank psum over idx)."""
     import jax
 
-    from ropebwt3_tpu.construct.merge import merge_rank_plain
-    from ropebwt3_tpu.parallel.mesh import make_mesh
-    from ropebwt3_tpu.parallel.merge_sharded import merge_rank_sharded
+    from ropebwt3_jax.construct.merge import merge_rank_plain
+    from ropebwt3_jax.parallel.mesh import make_mesh
+    from ropebwt3_jax.parallel.merge_sharded import merge_rank_sharded
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
     import numpy as np
 
-    from ropebwt3_tpu.construct.sa import gsa_bwt
-    from ropebwt3_tpu.nt6 import revcomp
+    from ropebwt3_jax.construct.sa import gsa_bwt
+    from ropebwt3_jax.nt6 import revcomp
 
     rng = np.random.default_rng(3)
     parts = []

@@ -5,11 +5,11 @@ reference binary), and the mmap dense sidecar must round-trip."""
 import numpy as np
 import pytest
 
-import ropebwt3_tpu.align.bwasw as bw
-from ropebwt3_tpu.align.bwtl import bwtl_gen, dawg_gen, dawg_gen_linear
-from ropebwt3_tpu.construct.sa import gsa_bwt
-from ropebwt3_tpu.index.dense import DenseFMIndex
-from ropebwt3_tpu.nt6 import char2nt6, revcomp
+import ropebwt3_jax.align.bwasw as bw
+from ropebwt3_jax.align.bwtl import bwtl_gen, dawg_gen, dawg_gen_linear
+from ropebwt3_jax.construct.sa import gsa_bwt
+from ropebwt3_jax.index.dense import DenseFMIndex
+from ropebwt3_jax.nt6 import char2nt6, revcomp
 
 
 def _make_index(refseqs):
@@ -129,8 +129,8 @@ def test_native_hapdiv_matches_python(native_lib):
 def test_native_smem_matches_ref(native_lib):
     import random
 
-    from ropebwt3_tpu.ops import smem_ref
-    from ropebwt3_tpu.ops.smem_native import smem_tg_batch_native
+    from ropebwt3_jax.ops import smem_ref
+    from ropebwt3_jax.ops.smem_native import smem_tg_batch_native
 
     random.seed(21)
     refs = ["".join(random.choice("ACGT") for _ in range(500)) for _ in range(3)]
@@ -160,8 +160,8 @@ def test_native_smem_edge_reads(native_lib):
     N, min_len=1, and enough reads (150) to force SM slot refill (G=16)."""
     import random
 
-    from ropebwt3_tpu.ops import smem_ref
-    from ropebwt3_tpu.ops.smem_native import smem_tg_batch_native
+    from ropebwt3_jax.ops import smem_ref
+    from ropebwt3_jax.ops.smem_native import smem_tg_batch_native
 
     random.seed(77)
     refs = ["".join(random.choice("ACGT") for _ in range(400)) for _ in range(2)]
@@ -192,7 +192,7 @@ def test_native_smem_seed_table_matches(native_lib, monkeypatch):
     the sequential walk for every k, including k clamped to min_len-1."""
     import random
 
-    from ropebwt3_tpu.ops.smem_native import smem_tg_batch_native
+    from ropebwt3_jax.ops.smem_native import smem_tg_batch_native
 
     random.seed(5)
     refs = ["".join(random.choice("ACGT") for _ in range(600)) for _ in range(3)]
@@ -224,7 +224,7 @@ def test_native_smem_fused_records_match(native_lib, monkeypatch):
     bit-identical to the two-stream layout."""
     import random
 
-    from ropebwt3_tpu.ops.smem_native import smem_tg_batch_native
+    from ropebwt3_jax.ops.smem_native import smem_tg_batch_native
 
     random.seed(13)
     refs = ["".join(random.choice("ACGT") for _ in range(500)) for _ in range(3)]
@@ -249,7 +249,7 @@ def test_native_smem_fused_records_match(native_lib, monkeypatch):
 
 
 def test_sidecar_roundtrip(tmp_path):
-    from ropebwt3_tpu.index.sidecar import read_sidecar, write_sidecar
+    from ropebwt3_jax.index.sidecar import read_sidecar, write_sidecar
 
     rng = np.random.default_rng(0)
     bwt = rng.integers(0, 6, 70000).astype(np.uint8)
@@ -272,7 +272,7 @@ def test_native_smem_pline_records_match(native_lib, monkeypatch):
     is odd relative to the 128-symbol record (round 4)."""
     import random
 
-    from ropebwt3_tpu.ops.smem_native import smem_tg_batch_native
+    from ropebwt3_jax.ops.smem_native import smem_tg_batch_native
 
     random.seed(29)
     refs = ["".join(random.choice("ACGT") for _ in range(777)) for _ in range(3)]
@@ -305,9 +305,9 @@ def test_pline_sidecar_roundtrip_and_dp(tmp_path, native_lib):
     import os
     import random
 
-    from ropebwt3_tpu.align.bwasw import SwOpt, RB3_SWF_E2E, RB3_SWF_HAPDIV, rb3_hapdiv_multi, rb3_sw
-    from ropebwt3_tpu.index.sidecar import read_pline, read_sidecar, write_pline, write_sidecar
-    from ropebwt3_tpu.ops.smem_native import pline_table
+    from ropebwt3_jax.align.bwasw import SwOpt, RB3_SWF_E2E, RB3_SWF_HAPDIV, rb3_hapdiv_multi, rb3_sw
+    from ropebwt3_jax.index.sidecar import read_pline, read_sidecar, write_pline, write_sidecar
+    from ropebwt3_jax.ops.smem_native import pline_table
 
     random.seed(31)
     refs = ["".join(random.choice("ACGT") for _ in range(900)) for _ in range(2)]

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from ropebwt3_tpu.index.dense import DenseFMIndex
+from ropebwt3_jax.index.dense import DenseFMIndex
 
 
 @pytest.fixture(scope="module")

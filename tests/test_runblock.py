@@ -8,12 +8,12 @@ import pytest
 
 import jax.numpy as jnp
 
-from ropebwt3_tpu.construct.sa import gsa_bwt
-from ropebwt3_tpu.index.dense import DenseFMIndex
-from ropebwt3_tpu.nt6 import revcomp
-from ropebwt3_tpu.ops import runblock
-from ropebwt3_tpu.ops.rank import DeviceIndex, extend, extend_c, rank1a
-from ropebwt3_tpu.ops.smem import smem_tg_batch
+from ropebwt3_jax.construct.sa import gsa_bwt
+from ropebwt3_jax.index.dense import DenseFMIndex
+from ropebwt3_jax.nt6 import revcomp
+from ropebwt3_jax.ops import runblock
+from ropebwt3_jax.ops.rank import DeviceIndex, extend, extend_c, rank1a
+from ropebwt3_jax.ops.smem import smem_tg_batch
 
 
 def _mk(seed=0, n_seqs=6, L=3000, div=0.02, with_ns=True):
@@ -111,7 +111,7 @@ def _runs_of(f):
 
 def test_runblock_smem_batch_matches_dense():
     """Full SMEM kernel over the compressed rows == dense rows == host spec."""
-    from ropebwt3_tpu.ops import smem_ref
+    from ropebwt3_jax.ops import smem_ref
 
     f, base, rng = _mk(seed=11)
     rb = runblock.from_dense(f)
@@ -152,15 +152,15 @@ def test_runblock_cache_roundtrip(tmp_path):
 
 def test_runblock_sharded_matches_host():
     """Compressed rows sharded over the idx mesh axis (parallel/mesh
-    occ="rb", VERDICT r4 item 3): the psum-reconstituted rank must drive the
+    occ="rb"): the psum-reconstituted rank must drive the
     sharded SMEM FSM to the exact host-reference MEMs — unpacked, packed, and
     uniform-stride layouts, run-coded and escape blocks, uneven shard tails."""
     import jax
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from ropebwt3_tpu.ops import smem_ref
-    from ropebwt3_tpu.parallel.mesh import ShardedIndex, make_mesh
-    from ropebwt3_tpu.parallel.smem_sharded import smem_sharded_fn
+    from ropebwt3_jax.ops import smem_ref
+    from ropebwt3_jax.parallel.mesh import ShardedIndex, make_mesh
+    from ropebwt3_jax.parallel.smem_sharded import smem_sharded_fn
 
     f, base, rng = _mk(seed=23, L=2500)
     mesh = make_mesh(2, 4)
@@ -207,41 +207,88 @@ def test_runblock_sharded_matches_host():
     assert int(np.asarray(n_memu).sum()) == 2 * total
 
 
-def test_cli_mem_occ_flag_golden(ref_bin, ref_index, corpus):
+def test_cli_mem_occ_flag_golden(golden, ref_index, corpus):
     """`mem --engine=jax --occ=rb` (first-class CLI switch for the capacity
     rows): BED byte-identical to the reference; bad values error cleanly."""
     import subprocess as sp
     import sys as _sys
 
-    from .conftest import run_ours, run_ref
+    from .conftest import run_ours
 
     args = ["mem", "-l13", str(ref_index), str(corpus / "reads.fa")]
-    want = run_ref(ref_bin, args)
+    want = golden(args)
     assert run_ours(args + ["--engine=jax", "--occ=rb"]) == want
-    import os as _os
-
-    env = dict(_os.environ)
-    env["PYTHONPATH"], env["JAX_PLATFORMS"] = "", "cpu"
-    r = sp.run([_sys.executable, "-m", "ropebwt3_tpu", "mem", "--occ=bogus"] + args[1:],
-               capture_output=True, env=env)
+    r = sp.run([_sys.executable, "-m", "ropebwt3_jax", "mem", "--occ=bogus"] + args[1:], capture_output=True)
     assert b"invalid --occ value" in r.stderr
 
 
-def test_cli_mem_mesh_rb_golden(ref_bin, ref_index, corpus):
-    """End-to-end `mem --engine=jax --mesh` with RB3TPU_DEVICE_OCC=rb: BED
+def test_cli_mem_mesh_rb_golden(golden, ref_index, corpus):
+    """End-to-end `mem --engine=jax --mesh` with RB3JAX_DEVICE_OCC=rb: BED
     byte-identical to the reference — the capacity format and the idx-sharded
     mesh serving the same query path the dense goldens cover."""
-    from .conftest import run_ours, run_ref
+    from .conftest import run_ours
 
     args = ["mem", "-l13", str(ref_index), str(corpus / "reads.fa")]
-    want = run_ref(ref_bin, args)
-    got = run_ours(args + ["--engine=jax", "--mesh=4x2"], extra_env={"RB3TPU_DEVICE_OCC": "rb"})
+    want = golden(args)
+    got = run_ours(args + ["--engine=jax", "--mesh=4x2"], extra_env={"RB3JAX_DEVICE_OCC": "rb"})
     assert got == want
+
+
+def _mk_multiple_of(S: int, seed: int = 41):
+    """Index whose length n is a multiple of S: 4 haplotypes double-strand
+    give n = 8 * (L + 1), so L + 1 = S / 8 * m."""
+    rng = np.random.default_rng(seed)
+    L = 6 * S // 8 - 1
+    base = rng.integers(1, 5, L).astype(np.uint8)
+    parts = []
+    for _ in range(4):
+        s = base.copy()
+        mut = rng.random(L) < 0.02
+        s[mut] = rng.integers(1, 5, int(mut.sum()))
+        parts += [s, np.zeros(1, np.uint8), revcomp(s), np.zeros(1, np.uint8)]
+    f = DenseFMIndex.from_bwt(gsa_bwt(np.concatenate(parts), backend="numpy"))
+    assert f.n % S == 0
+    return f
+
+
+@pytest.mark.parametrize("dt", [None, jnp.int64])
+@pytest.mark.parametrize("S", [256, 512])
+def test_runblock_rank_at_n_when_S_divides_n(S, dt):
+    """rank(n) on an index with S | n must count the last block's symbols:
+    k == n resolves to the last block at off == S, single-device rows."""
+    f = _mk_multiple_of(S)
+    rb = runblock.from_dense(f, S=S, idx_dtype=dt, cache=None)
+    ks = np.array([0, f.n - S, f.n - S + 1, f.n - 1, f.n], np.int64)
+    got = np.asarray(rank1a(rb, jnp.asarray(ks if dt is not None else ks.astype(np.int32))))
+    assert (got == f.rank1a(ks)).all()
+    assert (got[-1] == np.bincount(f.bwt[: f.n], minlength=6)).all()
+
+
+@pytest.mark.parametrize("S", [256, 512])
+def test_runblock_sharded_rank_at_n_when_S_divides_n(S):
+    """Same edge through the idx-sharded rows (parallel/mesh.rank1a_local):
+    the last shard owns k == n and must count its last block whole."""
+    import jax
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from ropebwt3_jax.parallel.mesh import ShardedIndex, make_mesh, rank1a_local
+
+    f = _mk_multiple_of(S)
+    mesh = make_mesh(1, 4)
+    sidx = ShardedIndex.from_dense(f, mesh, occ="rb", rb_S=S)
+    ks = np.array([0, f.n - S, f.n - 1, f.n], np.int32)
+
+    def local(tables, k):
+        return jax.lax.psum(rank1a_local(tables, sidx.nb_local, k, jnp.int32, rb=sidx.rb), "idx")
+
+    fn = jax.jit(jax.shard_map(local, mesh=mesh, in_specs=(sidx.table_specs, P()), out_specs=P(), check_vma=False))
+    got = np.asarray(fn(sidx.tables, jax.device_put(ks, NamedSharding(mesh, P()))))
+    assert (got == f.rank1a(ks.astype(np.int64))).all()
 
 
 def test_batched_engine_rb_matches_dense():
     """BatchedSmemTG(occ='rb') must produce identical Mem lists."""
-    from ropebwt3_tpu.ops.smem import BatchedSmemTG
+    from ropebwt3_jax.ops.smem import BatchedSmemTG
 
     f, base, rng = _mk(seed=17)
     Q, L = 40, 120

@@ -1,8 +1,8 @@
 """Resident engine server (server.py): golden mem via the socket route.
 
-Starts `rb3tpu serve` (CPU backend, device engine) on the tiny index, lets a
+Starts `rb3jax serve` (CPU backend, device engine) on the tiny index, lets a
 plain `mem` CLI invocation auto-route to it, and byte-compares the BED with
-the reference binary."""
+the reference binary (or, without it, the native host engine)."""
 
 import os
 import subprocess
@@ -18,7 +18,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def _env():
     e = dict(os.environ)
-    e["PYTHONPATH"] = ""
     e["JAX_PLATFORMS"] = "cpu"
     return e
 
@@ -26,10 +25,10 @@ def _env():
 @pytest.mark.slow  # ~3 min of daemon spawn/compile; serve coverage stays
 # via test_mem_via_server_golden
 def test_daemon_lifecycle_golden(ref_bin, ref_index, corpus):
-    """serve --daemon + RB3TPU_AUTO_SERVE: the daemon detaches with a
+    """serve --daemon + RB3JAX_AUTO_SERVE: the daemon detaches with a
     pidfile, a first auto-spawning mem runs locally and stays golden, a later
     mem hits the warm server, and serve --stop tears everything down."""
-    from ropebwt3_tpu.server import pid_path, server_available, sock_path
+    from ropebwt3_jax.server import pid_path, server_available, sock_path
 
     idx = str(ref_index)
     env = _env()
@@ -37,10 +36,10 @@ def test_daemon_lifecycle_golden(ref_bin, ref_index, corpus):
     try:
         # first use with auto-spawn enabled: spawns the daemon, runs locally
         env_auto = dict(env)
-        env_auto["RB3TPU_AUTO_SERVE"] = "1"
-        env_auto["RB3TPU_SERVE_ARGS"] = "--warm=13:150"  # one light warm on CPU
+        env_auto["RB3JAX_AUTO_SERVE"] = "1"
+        env_auto["RB3JAX_SERVE_ARGS"] = "--warm=13:150"  # one light warm on CPU
         r = subprocess.run(
-            [sys.executable, "-m", "ropebwt3_tpu", "mem", "-l13", idx, str(corpus / "reads.fa")],
+            [sys.executable, "-m", "ropebwt3_jax", "mem", "-l13", idx, str(corpus / "reads.fa")],
             env=env_auto, cwd=ROOT, capture_output=True, timeout=600,
         )
         assert r.returncode == 0, r.stderr.decode()[-2000:]
@@ -49,7 +48,7 @@ def test_daemon_lifecycle_golden(ref_bin, ref_index, corpus):
         assert os.path.exists(pid_path(idx))
         # a second auto-spawn attempt must NOT start another daemon
         r2 = subprocess.run(
-            [sys.executable, "-m", "ropebwt3_tpu", "mem", "-l13", idx, str(corpus / "reads.fa")],
+            [sys.executable, "-m", "ropebwt3_jax", "mem", "-l13", idx, str(corpus / "reads.fa")],
             env=env_auto, cwd=ROOT, capture_output=True, timeout=600,
         )
         assert r2.stdout == want
@@ -62,13 +61,13 @@ def test_daemon_lifecycle_golden(ref_bin, ref_index, corpus):
         else:
             raise AssertionError("daemon never became ready: " + open(sock_path(idx)[:-5] + ".log").read()[-2000:])
         r3 = subprocess.run(
-            [sys.executable, "-m", "ropebwt3_tpu", "mem", "-l13", idx, str(corpus / "reads.fa")],
+            [sys.executable, "-m", "ropebwt3_jax", "mem", "-l13", idx, str(corpus / "reads.fa")],
             env=env, cwd=ROOT, capture_output=True, timeout=600,
         )
         assert r3.stdout == want
     finally:
         subprocess.run(
-            [sys.executable, "-m", "ropebwt3_tpu", "serve", "--stop", idx],
+            [sys.executable, "-m", "ropebwt3_jax", "serve", "--stop", idx],
             env=env, cwd=ROOT, capture_output=True, timeout=60,
         )
     time.sleep(1.0)
@@ -76,12 +75,12 @@ def test_daemon_lifecycle_golden(ref_bin, ref_index, corpus):
     assert not server_available(idx)
 
 
-def test_mem_via_server_golden(ref_bin, ref_index, corpus):
-    from ropebwt3_tpu.server import server_available, sock_path
+def test_mem_via_server_golden(golden, ref_index, corpus):
+    from ropebwt3_jax.server import server_available, sock_path
 
     idx = str(ref_index)
     srv = subprocess.Popen(
-        [sys.executable, "-m", "ropebwt3_tpu", "serve", "--warm=13:150", idx],
+        [sys.executable, "-m", "ropebwt3_jax", "serve", "--warm=13:150", idx],
         env=_env(), cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
     )
     try:
@@ -94,29 +93,29 @@ def test_mem_via_server_golden(ref_bin, ref_index, corpus):
         else:
             raise AssertionError("server never became ready")
 
-        want = run_ref(ref_bin, ["mem", "-l13", idx, str(corpus / "reads.fa")])
+        want = golden(["mem", "-l13", idx, str(corpus / "reads.fa")])
         r = subprocess.run(
-            [sys.executable, "-m", "ropebwt3_tpu", "mem", "-l13", idx, str(corpus / "reads.fa")],
+            [sys.executable, "-m", "ropebwt3_jax", "mem", "-l13", idx, str(corpus / "reads.fa")],
             env=_env(), cwd=ROOT, capture_output=True, timeout=600,
         )
         assert r.returncode == 0, r.stderr.decode()[-2000:]
         assert r.stdout == want
         # second request reuses the warm engine (same bytes)
         r2 = subprocess.run(
-            [sys.executable, "-m", "ropebwt3_tpu", "mem", "-l13", idx, str(corpus / "reads.fa")],
+            [sys.executable, "-m", "ropebwt3_jax", "mem", "-l13", idx, str(corpus / "reads.fa")],
             env=_env(), cwd=ROOT, capture_output=True, timeout=600,
         )
         assert r2.stdout == want
         # --engine=native must BYPASS the server and still match
         r3 = subprocess.run(
-            [sys.executable, "-m", "ropebwt3_tpu", "mem", "--engine=native", "-l13", idx, str(corpus / "reads.fa")],
+            [sys.executable, "-m", "ropebwt3_jax", "mem", "--engine=native", "-l13", idx, str(corpus / "reads.fa")],
             env=_env(), cwd=ROOT, capture_output=True, timeout=600,
         )
         assert r3.stdout == want
         # mem --engine=hybrid routes to the server too (device + native
         # split inside the server process) and stays byte-golden
         r4 = subprocess.run(
-            [sys.executable, "-m", "ropebwt3_tpu", "mem", "--engine=hybrid", "-l13", idx, str(corpus / "reads.fa")],
+            [sys.executable, "-m", "ropebwt3_jax", "mem", "--engine=hybrid", "-l13", idx, str(corpus / "reads.fa")],
             env=_env(), cwd=ROOT, capture_output=True, timeout=600,
         )
         assert r4.returncode == 0, r4.stderr.decode()[-2000:]
@@ -127,16 +126,16 @@ def test_mem_via_server_golden(ref_bin, ref_index, corpus):
         swr = corpus / "reads_srv.fa"
         swr.write_text("\n".join(lines[:12]) + "\n")
         for cmd in (["sw", "-p2"], ["hapdiv", "-a61", "-w25"]):
-            want_c = run_ref(ref_bin, cmd + [idx, str(swr)])
+            want_c = golden(cmd + [idx, str(swr)])
             rc = subprocess.run(
-                [sys.executable, "-m", "ropebwt3_tpu", cmd[0], "--engine=jax"] + cmd[1:] + [idx, str(swr)],
+                [sys.executable, "-m", "ropebwt3_jax", cmd[0], "--engine=jax"] + cmd[1:] + [idx, str(swr)],
                 env=_env(), cwd=ROOT, capture_output=True, timeout=600,
             )
             assert rc.returncode == 0, (cmd[0], rc.stderr.decode()[-2000:])
             assert rc.stdout == want_c, cmd[0]
     finally:
         subprocess.run(
-            [sys.executable, "-m", "ropebwt3_tpu", "serve", "--stop", idx],
+            [sys.executable, "-m", "ropebwt3_jax", "serve", "--stop", idx],
             env=_env(), cwd=ROOT, capture_output=True, timeout=60,
         )
         try:

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from ropebwt3_tpu.construct.sa import gsa_bwt
-from ropebwt3_tpu.formats.ssa import read_ssa_bytes, write_ssa_bytes
-from ropebwt3_tpu.index.dense import DenseFMIndex
-from ropebwt3_tpu.ssa_ops import ssa_gen, ssa_lookup1, ssa_multi
+from ropebwt3_jax.construct.sa import gsa_bwt
+from ropebwt3_jax.formats.ssa import read_ssa_bytes, write_ssa_bytes
+from ropebwt3_jax.index.dense import DenseFMIndex
+from ropebwt3_jax.ssa_ops import ssa_gen, ssa_lookup1, ssa_multi
 
 
 @pytest.fixture(scope="module")
@@ -56,7 +56,7 @@ def test_ssa_multi_batch_matches_py(tiny):
     """Native interleaved batched locate == Python spec, including cap
     truncation order and degenerate intervals (exercises the G=16 state-
     machine refill with > 64 requests on one thread and > 64 threaded)."""
-    from ropebwt3_tpu.ssa_ops import ssa_multi_batch, ssa_multi_py
+    from ropebwt3_jax.ssa_ops import ssa_multi_batch, ssa_multi_py
 
     f, _ = tiny
     sa = ssa_gen(f, ssa_shift=3)
@@ -84,7 +84,7 @@ def test_ssa_roundtrip(tiny):
 
 
 def test_ssa_gen_device_matches_host(tiny):
-    from ropebwt3_tpu.ssa_ops import ssa_gen_device
+    from ropebwt3_jax.ssa_ops import ssa_gen_device
 
     f, _ = tiny
     a = ssa_gen(f, 4)

@@ -7,16 +7,16 @@ like the rest of the suite."""
 import numpy as np
 import pytest
 
-from ropebwt3_tpu.align.bwasw import RB3_SWF_E2E, SwOpt, rb3_sw
-from ropebwt3_tpu.formats import fmd
-from ropebwt3_tpu.index.dense import DenseFMIndex
+from ropebwt3_jax.align.bwasw import RB3_SWF_E2E, SwOpt, rb3_sw
+from ropebwt3_jax.formats import fmd
+from ropebwt3_jax.index.dense import DenseFMIndex
 
 
 @pytest.fixture(scope="module")
 def dense_index(ref_index):
     _, syms, lens = fmd.read_fmd(str(ref_index))
     f = DenseFMIndex.from_runs(syms, lens)
-    from ropebwt3_tpu.ssa_ops import ssa_gen
+    from ropebwt3_jax.ssa_ops import ssa_gen
 
     f.ssa = ssa_gen(f, 4)
     return f
@@ -57,7 +57,7 @@ def _sig(hits):
 
 @pytest.mark.parametrize("e2e,max_pos,mml", [(False, 0, 0), (False, 3, 17), (True, 2, 0)])
 def test_device_sw_matches_host(dense_index, corpus, e2e, max_pos, mml):
-    from ropebwt3_tpu.align.sw_jax import SwDeviceEngine
+    from ropebwt3_jax.align.sw_jax import SwDeviceEngine
 
     rng = np.random.default_rng(hash((e2e, max_pos, mml)) % 2**32)
     reads = _reads(corpus, rng)
@@ -78,7 +78,7 @@ def test_device_sw_matches_host(dense_index, corpus, e2e, max_pos, mml):
 def test_device_sw_nbest_geometry(dense_index, corpus, n_best):
     """Non-default -N on device (round 3: khashl geometry parameterized via
     nb_params, 32..256-bucket tables) stays exact vs the host engine."""
-    from ropebwt3_tpu.align.sw_jax import SwDeviceEngine
+    from ropebwt3_jax.align.sw_jax import SwDeviceEngine
 
     rng = np.random.default_rng(n_best)
     reads = _reads(corpus, rng, n=6)
@@ -98,8 +98,8 @@ def test_device_sw_int64_index(dense_index, corpus, monkeypatch):
     so the toy index exercises the int64 multi-megablock occf layout."""
     import jax.numpy as jnp
 
-    from ropebwt3_tpu.align import sw_jax as swj
-    from ropebwt3_tpu.ops import rank as rank_mod
+    from ropebwt3_jax.align import sw_jax as swj
+    from ropebwt3_jax.ops import rank as rank_mod
 
     monkeypatch.setattr(rank_mod, "MEGA_BLOCK_SHIFT", 6)
     rng = np.random.default_rng(64)
@@ -121,7 +121,7 @@ def test_unsupported_opts_fall_back(dense_index, corpus, n_best):
 
     50 is the regression case: 48 < N <= 64 passed the old gate but the
     F-closure stack pad shape (W, SCAP-N) went negative (fuzz seed 9000)."""
-    from ropebwt3_tpu.align.sw_jax import SwDeviceEngine
+    from ropebwt3_jax.align.sw_jax import SwDeviceEngine
 
     rng = np.random.default_rng(3)
     reads = _reads(corpus, rng, n=4)

@@ -23,7 +23,7 @@ def e2e_file(ref_bin, ref_index, corpus, tmp_path_factory):
 
 
 def _run_tools(args, input=None):
-    r = subprocess.run([sys.executable, "-m", "ropebwt3_tpu.tools"] + args, input=input, capture_output=True)
+    r = subprocess.run([sys.executable, "-m", "ropebwt3_jax.tools"] + args, input=input, capture_output=True)
     assert r.returncode == 0, r.stderr.decode()
     return r.stdout
 

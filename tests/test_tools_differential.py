@@ -1,5 +1,5 @@
 """Machine-checked differential for the rb3tools port: the production port
-(ropebwt3_tpu/tools.py, idiomatic Python, round 2) must byte-match the
+(ropebwt3_jax/tools.py, idiomatic Python, round 2) must byte-match the
 literal JS transliteration oracle (tests/js_oracle.py) on BOTH real
 reference --all-e2e output and randomized synthetic streams covering every
 branch (cs-op mix, gced overflow, score ties at the cutoff, cross-contig
@@ -17,7 +17,7 @@ from .test_tools import e2e_file  # noqa: F401  (fixture reuse)
 
 
 def _run_tools(args, input=None):
-    r = subprocess.run([sys.executable, "-m", "ropebwt3_tpu.tools"] + args, input=input, capture_output=True)
+    r = subprocess.run([sys.executable, "-m", "ropebwt3_jax.tools"] + args, input=input, capture_output=True)
     assert r.returncode == 0, r.stderr.decode()
     return r.stdout.decode()
 
